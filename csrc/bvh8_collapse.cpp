@@ -6,9 +6,8 @@
 // row-minimizing SAH dynamic program (policy 1, default; Ylitie et al.
 // 2017 adapted to the one-gather-per-row cost model) — so each can be
 // oracle-tested for bit equality. The Python loops walk the tree per child
-// per expansion step which costs seconds at ~100k triangles (BENCH_r01:
-// 4 s scene build, mostly here); these ports precompute subtree triangle
-// ranges in O(M) and emit rows in C — sub-10 ms at that size.
+// per expansion step, which costs seconds at ~100k triangles; these ports
+// precompute subtree triangle ranges in O(M) and emit rows in C.
 //
 // The hybrid table layout (every row = child stage + up to leaf_tris
 // inline triangles; emission-time exact knapsack absorbs the

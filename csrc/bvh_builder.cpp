@@ -1,12 +1,12 @@
 // Native SAH BVH builder.
 //
-// TPU-native framework's equivalent of the reference's host-side recursive
+// The framework's equivalent of the reference's host-side recursive
 // CPU builder (main.cu:17-233): longest-axis, 12-bucket binned SAH with cost
 // 1 + (SA_L*n_L + SA_R*n_R)/SA_parent, median fallback, mean-centroid backup
 // split, force-leaf fallback. Exposed via a C ABI for ctypes; the Python
 // numpy implementation in scene/bvh.py is the oracle this is tested against.
 //
-// Build: g++ -O3 -march=native -shared -fPIC -o libtpt_bvh.so bvh_builder.cpp
+// Built with csrc/bvh8_collapse.cpp into one library by scene/native.py.
 
 #include <algorithm>
 #include <cfloat>

@@ -1,4 +1,4 @@
-"""cudapathtracer_tpu — a TPU-native physically-based renderer in JAX/XLA/Pallas.
+"""cudapathtracer_tpu — a wavefront physically-based renderer in JAX/XLA.
 
 A brand-new wavefront re-design of the CUDA reference renderer "Novum"
 (DanielQ-51/cudapathtracer): five global-illumination integrators (naive PT,
@@ -6,7 +6,7 @@ unidirectional PT with NEE+MIS, BDPT, SPPM, VCM) over triangle meshes with a
 SAH BVH, a BSDF library, thin-lens/pinhole cameras, textures and a BMP/CSV
 image pipeline.
 
-Architecture (TPU-first, not a port):
+Architecture (wavefront, not a port):
   - wavefront SoA ray batches instead of one-thread-per-pixel megakernels
   - stackless multi-octant threaded BVH traversal (hit/miss links) instead of
     per-thread traversal stacks (reference: integratorUtilities.cuh:84-186)
@@ -14,7 +14,8 @@ Architecture (TPU-first, not a port):
     instead of per-thread curand XORWOW state (reference: deviceCode.cu:53-61)
   - scatter-add / sort-compaction instead of device atomics
   - jax.jit sample steps instead of CUDA Graphs (reference: deviceCode.cu:1857)
-  - shard_map image-tile sharding + ICI psum for multi-chip scaling
+  - shard_map image-tile sharding + psum collectives for multi-device
+    scaling
 """
 
 __version__ = "0.1.0"

@@ -5,7 +5,7 @@ pass (light-path walk + t=1 light-trace splat via scatter-add instead of
 atomicAdd), an eye pass, and a connection stage over all static (t, s)
 pairs. Because the path buffers are depth-major (models/paths.py), every
 vertex access in the connection loops is a static slice; per-(t,s) work is a
-masked shadow traversal + pure VPU math.
+masked shadow traversal + pure elementwise math.
 
 Strategy toggles / MIS / weight-painting mirror the reference's constant
 flags (deviceCode.cu:9-51): BDPT_LIGHTTRACE, BDPT_NEE, BDPT_NAIVE,

@@ -108,10 +108,10 @@ def render_sample(scene, camera, base_key, sample_idx, px, py, *,
         lane_ok = jnp.arange(c_pix, dtype=jnp.int32) < cnt
 
         # ---- light pass (vertices 0..light_depth-1) ----
-        # classic scan walk by default — measured faster than the
-        # persistent machine at these shapes (see vcm_mega.chunk_body);
-        # TPT_MEGA_LIGHT=1 selects the machine (vertex 0 then comes from
-        # the endpoint math alone, no traversal)
+        # classic scan walk by default — faster than the persistent machine on
+        # the previous accelerator at these shapes (see vcm_mega.chunk_body);
+        # TPT_MEGA_LIGHT=1 selects the machine (vertex 0 then comes from the
+        # endpoint math alone, no traversal)
         if os.environ.get("TPT_MEGA_LIGHT"):
             from cudapathtracer_tpu.models import light_mega
             _start, lv0 = paths.start_light_walk(scene, key_l, c_pix,

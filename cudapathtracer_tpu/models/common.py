@@ -33,8 +33,8 @@ def compacted_loop(cond, body, init, n: int, min_width: int, frac: int = 4):
     """Run a bounce `while_loop` with straggler compaction: at full width
     only while the live-lane count exceeds n/frac, then gather survivors
     into an n/frac-wide wavefront and recurse — dead lanes stop paying for
-    traversal, shading and RNG (the lockstep-tail cost the v5e cost model
-    indicts, docs/ROADMAP.md). `init` is a NamedTuple whose [n]-leading
+    traversal, shading and RNG (the lockstep-tail cost of a wavefront).
+    `init` is a NamedTuple whose [n]-leading
     arrays are per-lane state and which has a bool `alive` field; scalar
     fields continue through the sub-loop. Bit-transparent as long as every
     sampling stream is keyed by per-pixel ids (utils/rng.py), never lane
@@ -285,11 +285,9 @@ def stack_remove(ms: MediumStack, mat_id, mask) -> MediumStack:
 
 
 def table_lookup(col, ids):
-    """col[ids] — direct row gather. Round 1 used a one-hot contraction
-    here on the belief that random gathers paid a large latency floor; the
-    revised v5e cost model (docs/ROADMAP.md) shows the gather is nearly
-    free while the one-hot's [N,24]-shaped intermediates waste the 128-wide
-    lane dimension."""
+    """col[ids] — direct row gather (a one-hot contraction was tried
+    first, on the belief that random gathers paid a large latency floor;
+    its [N,24]-shaped intermediates cost more)."""
     return col[ids]
 
 

@@ -2,13 +2,12 @@
 
 Alternative to the classic per-bounce lockstep light pass
 (models/paths.py random_walk over [C] lanes x light_depth scan steps)
-for the mega VCM/BDPT engines, selected with TPT_MEGA_LIGHT=1. Built in
-round 4 to kill the scan's full-width dead-lane shading; the ISOLATED
-measurement at the reference-shipped 800^2 eye16/light10 shape came out
-classic 0.59 s vs machine 1.03 s (round-3's 2.5-3 s attribution for the
-light pass was stale), so the classic scan stays the default — the
-machine's per-transition vertex scatter and drain windows outweigh the
-lockstep waste it removes at these path counts. Kept tested: it may win
+for the mega VCM/BDPT engines, selected with TPT_MEGA_LIGHT=1. Built to
+kill the scan's full-width dead-lane shading; on the previous accelerator
+it lost to the classic scan at the reference-shipped 800^2 eye16/light10
+shape, so the classic scan stays the default — the machine's
+per-transition vertex scatter and drain windows outweighed the lockstep
+waste it removes at these path counts. Kept tested: it may win
 on workloads with strongly varying light-path lengths or much deeper
 walks. Reference counterpart: generateLightPath,
 deviceCode.cu:1081-1287.
@@ -23,12 +22,12 @@ simpler — every lane is always in the CLOSEST phase:
     relaunch — or retire and refill with a fresh endpoint;
   * vertex emission writes ONE packed u32 row per lane into the
     depth-major [rows*C, 15] table with a single scatter per transition
-    (measured: a scatter into a while-loop carry aliases in place — the
+    (a scatter into a while-loop carry aliases in place — the
     per-iteration cost scales with the W update rows, not the table);
   * endpoints are recomputed arithmetically at refill (the exact
     start_light_walk formulas) instead of gathering [C]-sized start
-    tables — per-transition random gathers on launch-width tables are a
-    dominant transition cost on v5e (the no_raygen ablation);
+    tables — per-transition random gathers on launch-width tables were a
+    dominant transition cost on the previous accelerator;
   * per-lane draw keys: the classic walk keys draws by
     (bounce_key(key, depth), draw, pixel id); lanes here sit at
     DIFFERENT depths, so the scalar fold chain is precomputed per
@@ -316,9 +315,9 @@ def light_walk_mega(scene, key, c_pix: int, max_depth: int,
     def body(s: _LState):
         # No mini-transitions: every lane is a closest-phase lane, so the
         # only useful transition is the FULL one (shade + emit + next
-        # launch). Firing it at mini cadence measured 10.9 vs 8.4
-        # s/sample on the shipped 800^2 workload — shade-row gathers and
-        # the vertex scatter at every node-step swamped the walk.
+        # launch). Firing it at mini cadence was slower on the shipped
+        # 800^2 workload — shade-row gathers and the vertex scatter at
+        # every node-step swamped the walk.
         skip = jnp.full((w,), -1, jnp.int32)
         shadow = jnp.zeros((w,), bool)
         ts = s.ts

@@ -44,10 +44,10 @@ def render_sample(scene, camera, base_key, sample_idx, px, py, *,
     """Trace one sample for pixels (px, py) [N]; returns radiance [N,3].
 
     compact_min_width: bounce-level straggler compaction threshold
-    (common.compacted_loop, bit-transparent). Default OFF: measured
-    NEUTRAL-to-slightly-negative for this integrator on v5e (256^2
-    Cornell 9.69 Mrays/s off vs 9.19 on) — traversal already compacts
-    internally and naive shading is too cheap for dead lanes to matter.
+    (common.compacted_loop, bit-transparent). Default OFF: neutral to
+    slightly negative for this integrator on the previous accelerator —
+    traversal already compacts internally and naive shading is too cheap
+    for dead lanes to matter.
     Kept as a knob for deep-depth workloads."""
     n = px.shape[0]
     skey = rng.sample_key(base_key, sample_idx)

@@ -3,18 +3,17 @@
 Same estimator as models/unidirectional.py (Li_unidirectional,
 deviceCode.cu:285-542: NEE + power-2 MIS, nested-dielectric priority
 stack, Beer-Lambert absorption, Russian roulette), reorganized around the
-measured v5e cost model:
+cost model of the accelerator it was first tuned on:
 
   * per-bounce and per-traversal lockstep tails burn most of the machine
-    in the classic design (~41 effective full-width steps per closest call
-    whose mean useful depth is ~12 rows) — persistence removes the tails;
-  * the traversal step cost is VPU work in LANE-MAJOR layout, not the row
-    gather (~3 us at 104k lanes; revised cost model, docs/ROADMAP.md);
+    in the classic design (a closest call runs as many full-width steps
+    as its deepest lane needs) — persistence removes the tails;
+  * the traversal step cost was elementwise work, not the row gather, so
+    per-lane state is LANE-MAJOR;
   * the TRANSITION (shade/NEE/BSDF/refill) was the second-largest cost
-    (~6.4 ms of a 19.2 ms 1080p iteration) in row-major [W,3]/[W,16]
-    layout — every per-lane vector now rides the 128-wide lane dimension
-    as [3,W] / [S,W] via ops/lanemajor.py, the same transposition that
-    took the traversal step 4x faster.
+    in row-major [W,3]/[W,16] layout — every per-lane vector now rides
+    the minor axis as [3,W] / [S,W] via ops/lanemajor.py, the same
+    transposition the traversal step uses.
 
 Design: ONE fixed-width lane machine. Every loop iteration advances a
 mixed closest/shadow BVH8 node-step for all lanes
@@ -26,7 +25,8 @@ the wavefront stays full of useful traversal work from the first pixel
 to the global drain. There are no per-bounce barriers and no per-call
 tails. Pixel assignment is STATIC (lane l owns pixels g*W + l), so
 retiring is a handful of masked row-writes into a [G,3,W] buffer instead
-of a [W]-indexed scatter (measured 4.8 ms/transition on v5e).
+of a [W]-indexed scatter (scattered rows serialized on the previous
+accelerator; not yet measured on the GPU).
 
 Sampling is keyed by (pixel index, per-lane bounce counter) via the
 layout-independent id streams (utils/rng.py), so the image is independent
@@ -64,82 +64,60 @@ _D_RR = 8
 
 # Default schedule (steps_per_iter traversal node-steps per while
 # iteration, grouped into mini_splits transition checks). XLA:CPU compile
-# time is super-linear in the unrolled body size (measured 11s/33s/132s at
-# spi 1/4/8 on the 16x16 golden), so the test suite dials these down via
-# the environment exactly like ops/traverse.py — the image is invariant to
-# the schedule (RNG is keyed by global pixel id + per-lane bounce counter).
-# Same-hour 1080p sweep (2026-08, packed-u32 retirement): spi=8/mini=8
-# raised busy 64% -> 75% over spi=16/mini=16 (9.4 -> 9.7+ Mrays/s);
-# spi=12 loses (9.07), spi=16/w=25920 ties at busy 59.6%.
-# Round-3 re-sweep after HYBRID BVH8 rows (inline leaf absorption cut
-# rows/ray ~23%, so traversals drain sooner and want a faster transition
-# cadence): spi 8/6/5/4 -> 9.46/11.16/10.92/10.67 at w=12960; width
-# resweep at spi=6: 7776/9720/12960/16200 -> 11.35/11.67/11.16/10.51.
-# New defaults spi=6/mini=6/w=9720 (same-hour baseline was 9.35).
-# Round-5 re-sweep after the step tensorization (same-hour, 1080p):
-# the cheaper step moved the optimum wider and to fewer minis —
-# (spi,mini,w) 6/6/9720: 14.11, 6/6/12960: 14.64, 6/3/12960: 15.07,
-# 6/2/12960: 14.99, 6/3/16200: 14.90, 8/4/12960: 14.30 Mrays/s.
-# New defaults spi=6/mini=3/w=12960 (same-hour old-default baseline
-# 13.05-13.10; +15.5%).
+# time is super-linear in the unrolled body size, so the test suite dials
+# these down via the environment exactly like ops/traverse.py — the image
+# is invariant to the schedule (RNG is keyed by global pixel id + per-lane
+# bounce counter). spi=6/mini=3 with MEGA_WIDTH=12960 won a 1080p sweep of
+# (spi, mini, width) on the previous accelerator: fewer steps per
+# iteration refill drained lanes sooner, more amortize the transition.
+# Not yet re-swept on the GPU (ROADMAP Queue 1 item 5).
 STEPS_PER_ITER = int(_os.environ.get("TPT_MEGA_STEPS_PER_ITER", "6"))
 MINI_SPLITS = int(_os.environ.get("TPT_MEGA_MINI_SPLITS", "3"))
-# Default lane count of the persistent machine. Measured on v5e (1080p
-# Cornell+mesh sweep, 2026-08): full-frame lanes (2M) ride the pixel queue
-# with huge idle drain tails — 5.4 Mrays/s; ~52k lanes with the dynamic
-# queue feeding them hit 6.5 Mrays/s at 31 lane-steps/ray (25920 ties at
-# 18 steps/ray but runs 846 iterations vs 713 — more host dispatches).
-# Width never changes the image (RNG keyed by global pixel id).
-# 1080p same-hour sweep with fused retirement + KSLOTS_FACTOR=1:
-# w=51840: 6.5, 25920: 7.4, 12960: 7.86, 6480: 7.38 Mrays/s -> 12960;
-# re-swept to 9720 with hybrid BVH8 rows (see STEPS_PER_ITER note).
+# Default lane count of the persistent machine: full-frame lanes ride the
+# pixel queue with long idle drain tails, too few lanes leave the device
+# underfed; the value is the previous accelerator's 1080p optimum (see
+# STEPS_PER_ITER). Width never changes the image (RNG keyed by global
+# pixel id).
 MEGA_WIDTH = int(_os.environ.get("TPT_MEGA_WIDTH", "12960"))
 # Retire-slot capacity factor: k_slots = factor*gens + 8. Any factor >= 1
 # is exact (all lanes slot-full while queue pixels remain is impossible:
 # W*(gens+8) > gens*W = queue length, so some lane always has a free slot
 # and the queue drains); the factor only trades load-balance tail time
-# against the [K,3,W] retirement sweep per transition (K=168 -> 88 at
-# w=25920/1080p measured -440 us/iteration).
+# against the [K,3,W] retirement sweep per transition.
 KSLOTS_FACTOR = float(_os.environ.get("TPT_MEGA_KSLOTS_FACTOR", "1.0"))
 # Early-NEE overlap (see mini()): launch a drained closest lane's NEE
-# shadow at a mini instead of idling until the full transition. MEASURED
-# OFF by default: same-session 1080p A/B gave 11.59 (off) vs 10.33
-# (every mini) vs 10.64 (once mid-window) — the mini-side draw + light
-# sample + launch block costs more than the drain-wait it removes at the
-# current spi=6 cadence. The machinery stays (bit-identical images,
+# shadow at a mini instead of idling until the full transition. OFF by
+# default: on the previous accelerator the mini-side draw + light sample
+# + launch block cost more than the drain-wait it removes at the spi=6
+# cadence. The machinery stays (bit-identical images,
 # tests/test_mega.py::test_mega_early_nee_overlap_invariant) for
 # schedules/scenes where shadow latency dominates; the extra state rides
 # the carry measurably free when off.
 EARLY_NEE = _os.environ.get("TPT_MEGA_EARLY_NEE", "0") not in ("0", "")
 # Retirement scheme. "slots" (default): the per-lane [K,W] RGB9E5 slot
-# lists + end-of-loop resolve scatter. The slot sweep measured
-# 61 us/iter at the 1080p defaults (TPT_MEGA_ABLATE_RETIRE A/B: 11.85
-# -> 13.87 Mrays/s if it were free), which motivated "scatter": finished
-# paths flush (pid, radiance) straight into a chunk-image carry via one
-# compacted scatter-add of <= RETIRE_CAP rows per transition, overflow
-# lanes deferring one transition (exact — li/pid just wait). MEASURED
-# AND REJECTED as the default (round 4): 651 vs ~418 us/iter at 1080p
-# w=9720 — the top_k compaction is a full sort and scatter rows
-# serialize at ~47 ns/row, together costing ~4x the sweep they replace.
-# The path stays selectable (TPT_MEGA_RETIRE=scatter) and tested; it
-# may win at wider W or higher K where the sweep scales worse.
+# lists + end-of-loop resolve scatter. The slot sweep is a visible share
+# of each iteration, which motivated "scatter": finished paths flush
+# (pid, radiance) straight into a chunk-image carry via one compacted
+# scatter-add of <= RETIRE_CAP rows per transition, overflow lanes
+# deferring one transition (exact — li/pid just wait). Rejected as the
+# default on the previous accelerator, where the top_k compaction (a full
+# sort) and serialized scatter rows cost more than the sweep. The path
+# stays selectable (TPT_MEGA_RETIRE=scatter) and tested; the GPU's
+# scatter-add may change the verdict (ROADMAP Queue 1 item 7).
 RETIRE = _os.environ.get("TPT_MEGA_RETIRE", "slots")
 RETIRE_CAP = int(_os.environ.get("TPT_MEGA_RETIRE_CAP", "0"))
-# "window" retirement: the [K,W] one-hot sweep (61 us/iter at the 1080p
-# defaults — 17% of the headline, TPT_MEGA_ABLATE_RETIRE A/B 11.85 ->
-# 13.87) only ever WRITES rows in the narrow band of ret_count values
-# that are actually retiring this transition, so sweep a [R,W]
-# dynamic-slice window based at min(ret_count | retiring) instead of all
-# K rows. Lanes whose ret_count falls beyond the window (spread > R
-# generations — rare) defer exactly like the scatter mode's pend lanes
-# and flush on a later transition once the window advances (the window
-# base is the min over DEFERRED-OR-DEAD lanes, so progress is
-# guaranteed). Image-identical: same slots, same values, only the write
-# schedule changes.
+# "window" retirement: the [K,W] one-hot sweep only ever WRITES rows in the
+# narrow band of ret_count values that are actually retiring this transition,
+# so sweep a [R,W] dynamic-slice window based at min(ret_count | retiring)
+# instead of all K rows. Lanes whose ret_count falls beyond the window (spread
+# > R generations — rare) defer exactly like the scatter mode's pend lanes and
+# flush on a later transition once the window advances (the window base is the
+# min over DEFERRED-OR-DEAD lanes, so progress is guaranteed).
+# Image-identical: same slots, same values, only the write schedule changes.
 RETIRE_WIN = int(_os.environ.get("TPT_MEGA_RETIRE_WIN", "32"))
 # Slot-retirement flush cadence: with F > 1, only every F-th transition
-# runs the [K,W] slot sweep (61 us/iter at the 1080p defaults); finished
-# lanes in between park on the `pend` flag (pid/li held, excluded from
+# runs the [K,W] slot sweep; finished lanes in between park on the
+# `pend` flag (pid/li held, excluded from
 # shading and refill) — each lane holds at most ONE finished path, so
 # the flush stays a single one-hot sweep. Costs a little refill latency
 # (a dead lane idles <= F-1 windows); the F=2 A/B decides the default.
@@ -206,9 +184,8 @@ class _MState(NamedTuple):
     #                        scatter; one big scatter after the loop
     #                        resolves slots to pixels. Packed because the
     #                        select sweeps the whole buffer every
-    #                        transition: u32 vs 3xf32 cut the sweep's HBM
-    #                        traffic 2x (measured 102 us/iter at
-    #                        K=168/w=12960/1080p unpacked). RGB9E5's 9-bit
+    #                        transition: u32 vs 3xf32 cuts the sweep's
+    #                        memory traffic 2x. RGB9E5's 9-bit
     #                        mantissa costs <0.2% on a single path's
     #                        radiance, zero-mean across paths; values clip
     #                        at 65408 (extreme-firefly cap).
@@ -236,17 +213,16 @@ def render_sample(scene, camera, base_key, sample_idx, px, py, *,
     bench always pass). The refill path then derives pixel coordinates
     and queue ids ARITHMETICALLY from the pixel id instead of gathering
     the [P]-sized px/py/qidx tables per transition — per-transition
-    random gathers on frame-sized tables are a dominant transition cost
-    on v5e (the no_raygen ablation: ~230 us/iteration for two of them).
+    random gathers on frame-sized tables were a dominant transition cost
+    on the previous accelerator.
     Bit-identical to grid_w=0 (same floats, same RNG ids).
 
     chunk_pixels: pixel-queue chunk size (0 = auto). The persistent while
     loop runs once per chunk with a CHUNK-LOCAL accumulator; chunk images
-    are emitted as scan outputs and concatenated. Keeping the in-loop
-    state small is a measured v5e requirement: a full-image [P,3]
-    accumulator in the while carry blew VMEM residency for the loop body
-    and cost ~3.4 ms of spill traffic per iteration at 1080p
-    (docs/ROADMAP.md revised cost model). The image is invariant to the
+    are emitted as scan outputs and concatenated. The in-loop state is
+    kept small: on the previous accelerator a full-image [P,3]
+    accumulator in the while carry spilled out of on-chip memory every
+    iteration. The image is invariant to the
     chunking because every RNG stream is keyed by GLOBAL pixel id.
     """
     steps_per_iter = steps_per_iter or STEPS_PER_ITER
@@ -256,10 +232,10 @@ def render_sample(scene, camera, base_key, sample_idx, px, py, *,
         c_pix0 = min(chunk_pixels, p_total)
     else:
         # ONE machine over the whole frame: each chunk pays its own global
-        # drain tail (deep RR survivors bounce once per full transition),
-        # and 5 chunks at 1080p measured 1.6x slower than 1 (busy-fraction
-        # 11% -> 19%). The [G,3,W] accumulator keeps the carry streamable
-        # at any frame size, so chunking is now only an explicit override.
+        # drain tail (deep RR survivors bounce once per full transition), so
+        # several chunks at 1080p ran slower than one. The [G,3,W] accumulator
+        # keeps the carry streamable at any frame size, so chunking is now
+        # only an explicit override.
         c_pix0 = p_total
     w = min(width or MEGA_WIDTH, c_pix0)
     gens = -(-c_pix0 // w)       # mean paths per lane per chunk
@@ -500,16 +476,14 @@ def render_sample(scene, camera, base_key, sample_idx, px, py, *,
         # A retired path's radiance lands in the lane's own SLOT LIST
         # (acc[k, :, lane] + ret_pid[k, lane], k = the lane's retire
         # count): masked row-writes instead of the [W]-indexed
-        # scatter-add this replaces (measured 4.8 ms/transition on v5e —
-        # scattered rows serialize); run_chunk resolves the slots to
+        # scatter-add this replaces (scattered rows serialized on the
+        # previous accelerator); run_chunk resolves the slots to
         # pixels with ONE scatter after the loop. The pixel QUEUE is
         # dynamic for load balance: a lane that drew several deep-RR
         # paths must not serialize them while other lanes idle (a static
-        # per-lane pixel assignment measured 330 tail iterations vs the
-        # queue's ~130 at 1080p).
+        # per-lane pixel assignment ran a much longer drain tail).
         # one fused one-hot select over [K,W] instead of K sequential
-        # masked at[k].set ops (the op-per-slot loop measured +440 us per
-        # iteration at K=88..168: each update re-traverses the buffer);
+        # masked at[k].set ops (each update re-traverses the buffer);
         # radiance packs to one RGB9E5 word so the sweep reads/writes
         # 2 [K,W] i32 planes, not [K,3,W]+[K,W] floats
         if scatter_ret:
@@ -770,8 +744,7 @@ def render_sample(scene, camera, base_key, sample_idx, px, py, *,
     def make_body(pxc, pyc, gbase, cnt, qidx):
         # RETIRE_EVERY > 1 unrolls that many windows per while iteration
         # so the flush/no-flush alternation stays STATIC (a lax.cond
-        # around the transition measured ~4x the per-iteration cost: the
-        # conditional breaks the while-carry aliasing)
+        # around the transition breaks the while-carry aliasing)
         f_every = max(1, RETIRE_EVERY) if not scatter_ret else 1
 
         def body(s: _MState):
@@ -792,8 +765,7 @@ def render_sample(scene, camera, base_key, sample_idx, px, py, *,
                     s = s._replace(ts=ts)
                     if g + 1 < msplit:
                         # the early-NEE block (draws + light math) is too
-                        # costly for every mini (measured: every-mini -11%
-                        # vs off); fire it once mid-window
+                        # costly for every mini; fire it once mid-window
                         s = mini(s, gbase,
                                  do_early=(g == (msplit - 1) // 2))
                 s = s._replace(it=s.it + 1)

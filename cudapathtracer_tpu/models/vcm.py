@@ -168,7 +168,7 @@ def render_sample(scene, camera, base_key, sample_idx, px, py, *,
     photon rows are all-gathered over that axis (tiled, so the union lands
     in global pixel order), the hash grid is built per shard on the UNION,
     and eta_vcm / the merge normalization use the GLOBAL path count — the
-    TPU-native equivalent of the reference's single shared photon grid
+    sharded equivalent of the reference's single shared photon grid
     every thread reads (deviceCode.cu:3359). Only valid inside shard_map;
     combine with splat_shape for the light-trace splat."""
     n = px.shape[0]
@@ -210,7 +210,7 @@ def render_sample(scene, camera, base_key, sample_idx, px, py, *,
                                      flat(lbufs.beta),
                                      flat(lbufs.d_vcm), flat(lbufs.d_vm))
         if photon_axis:
-            # photon exchange over ICI: the packed rows are small
+            # photon exchange across devices: the packed rows are small
             # (light_depth+1 per path x 32 B), so a tiled all-gather of
             # rows + validity builds every shard the same global grid
             rows = jax.lax.all_gather(rows, photon_axis, axis=0,
@@ -291,7 +291,7 @@ def render_sample(scene, camera, base_key, sample_idx, px, py, *,
             # (models/bdpt.py first_t): directly-visible emission is NOT a
             # firefly — the reference's unconditional clamp at
             # deviceCode.cu:2953 squashes Le luminance to MAX_FIREFLY_LUM
-            # on light pixels (measured −26% image mean on the diffuse
+            # on light pixels (a visible loss of image mean on the diffuse
             # Cornell, tools/debug_vcm_split.py); depth 0 is exempt here.
             out = jnp.where(depth == 0, out, _clamp_firefly(out))
             colorsum = colorsum + jnp.where(is_light[:, None], out, 0.0)

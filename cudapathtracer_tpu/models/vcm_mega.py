@@ -8,7 +8,8 @@ recursion), reorganized as ONE persistent lane machine:
   * the classic eye pass pays a lockstep traversal tail per bounce per
     connection — eye_depth closest calls + eye_depth NEE shadows +
     eye_depth*light_depth connection shadows each run full-width while
-    most lanes are drained (the v5e cost model's dominant waste);
+    most lanes are drained (the dominant waste on the previous
+    accelerator);
   * here every lane cycles through its own phase sequence
     closest -> NEE shadow -> conn(j..L-1) shadows -> next closest with no
     barriers: a drained lane relaunches on its next ray at the next
@@ -16,8 +17,8 @@ recursion), reorganized as ONE persistent lane machine:
     connections (light path shorter than j) are skipped wholesale via
     the per-path valid-vertex count;
   * all per-lane shading/connection math is lane-major ([3,W] vectors,
-    ops/lanemajor.py) — the layout that took both the traversal step and
-    the unidirectional mega transition ~4x faster.
+    ops/lanemajor.py), the layout of the traversal step and the
+    unidirectional mega transition.
 
 Two transition flavors ride the fused node-step loop
 (ops/traverse8.make_fused_step):
@@ -86,17 +87,11 @@ _D_NEE = 16    # 3 draws
 
 _ID_STRIDE = 64  # ids = global_pixel_index * 64 + depth; eye_depth < 64
 
-# Round-3 re-sweep after hybrid BVH8 rows (same-window, shipped 800^2
-# eye16/light10 workload): spi8/w12960 15.6 -> spi6/w12960 13.1 ->
-# spi6/w9720 12.0 s/sample (spi4 16.2 and merge_w=W/2 16.5 lose).
-# Round-4 attribution + re-sweep (same-session, shipped workload):
-# connections are ~FREE (no_connect measured no faster), merge is
-# ~2.5 s (no_merge 5.91 vs 8.37), and the LIGHT-transition cadence was
-# the sleeper — mini_splits 6 -> 2 alone took 8.37 -> 6.50; the full
-# sweep (6,1) 7.27 / (6,2) 6.50 / (6,3) 6.83 / (4,2) 7.77 / (8,2) 6.03
-# / (10,2) 6.25 / (12,2) 6.43 / (16,2) 6.74, width at (8,2)
-# 9720 -> 12960: 6.03 -> 5.99, merge_w 1216/2430(def)/3648 ->
-# 9.17/6.03/6.78. New defaults (8, 2, 12960): 8.37 -> 5.99 s/sample.
+# (steps_per_iter, mini_splits, width) = (8, 2, 12960) won a sweep on the
+# shipped 800^2 eye16/light10 workload on the previous accelerator, where
+# connections were nearly free, the merge was a large share, and the
+# transition cadence (mini_splits) mattered most. Not yet re-swept on the
+# GPU (ROADMAP Queue 1 item 5).
 STEPS_PER_ITER = int(_os.environ.get("TPT_MEGA_STEPS_PER_ITER", "8"))
 MINI_SPLITS = int(_os.environ.get("TPT_MEGA_MINI_SPLITS", "2"))
 # tuned default lane count + retire-slot factor — see unidirectional_mega
@@ -105,17 +100,15 @@ KSLOTS_FACTOR = float(_os.environ.get("TPT_MEGA_KSLOTS_FACTOR", "1.0"))
 # photon-merge sub-wavefront capacity (lanes merged per FULL transition).
 # The merge fold's gathers cost ~per-row, so folding at the full width W
 # wastes most of the HBM traffic on lanes with nothing to merge. Too small
-# a capacity throttles instead (deferral stalls): demand on the shipped
-# 800^2 eye16/light10 workload is ~4.7k merges/transition, and the v5e
-# sweep (same-hour, W=12960) measured 640/1664/2304/3200/4352/6400/12960
-# -> 39.9/19.7/17.8/13.5/15.8/20.3/33.9 s per sample. W/4 is the optimum.
-# 0 = auto (W/4, >=512, rounded up to the 128-lane register width).
+# a capacity throttles instead (deferral stalls). W/4 was the optimum of a
+# sweep on the shipped 800^2 workload on the previous accelerator.
+# 0 = auto (W/4, >=512, rounded up to a multiple of 128 lanes).
 MERGE_W = int(_os.environ.get("TPT_MEGA_MERGE_W", "0"))
 
 # Batched-slot merge (default on): evaluate the merge BSDF/MIS math once
 # over all 8x8 candidate slots flattened to [64*mw] lanes instead of a
 # 128-iteration slot fold — at the compacted sub-wavefront width the
-# fold's tiny [mw] vectors left the VPU ~97% idle on per-op overhead.
+# fold's tiny [mw] vectors were dominated by per-op overhead.
 # Changes float summation order (a [64]-axis tree sum replaces the
 # sequential fold), so images differ from the fold path by ~ulps; the
 # candidate set and MIS math are identical. TPT_MEGA_MERGE_BATCH=0
@@ -244,8 +237,9 @@ class _VState(NamedTuple):
     ret_pid: jax.Array    # [K,W] i32 pixel of each retired slot; -1 empty
     acc: jax.Array        # [K,W] u32 per-slot retired radiance (RGB9E5
     #                       packed): retiring is a one-hot select over
-    #                       [K,W], not a scatter (4.8 ms/transition on
-    #                       v5e); one scatter per chunk after the loop
+    #                       [K,W], not a scatter (see
+    #                       unidirectional_mega); one scatter per chunk
+    #                       after the loop
     #                       resolves slots to pixels — see
     #                       unidirectional_mega._MState.acc for the
     #                       packing rationale
@@ -885,7 +879,7 @@ def _mk_eye_machine(scene, camera, cfg: VCMConfig, skey_e, cam_key, w,
         pid = s.pid
         if scatter_ret:
             # compacted scatter-add flush into the chunk-image carry —
-            # see unidirectional_mega (round-4 retirement surgery)
+            # see unidirectional_mega (RETIRE)
             cap = min(ret_cap, pid.shape[0])
             pendA = s.pend | dead
             rank = jnp.cumsum(pendA.astype(jnp.int32))
@@ -1133,15 +1127,14 @@ def render_sample(scene, camera, base_key, sample_idx, px, py, *,
                             * jnp.maximum(cnt.astype(jnp.float32), 1.0))
 
         # ---- light pass for this chunk's paired light paths ----
-        # The classic depth-scan walk is the measured default. Round 4
-        # built the persistent light machine (models/light_mega.py — same
-        # draw streams, per-vertex-equal output) expecting to kill
-        # per-bounce lockstep waste, but the ISOLATED measurement at this
-        # exact shape (640k paths, depth 11) reads classic 0.59 s vs
-        # machine 1.03 s: the scan's compacted traversal already
-        # amortizes well and the machine's per-transition vertex scatter
-        # + drain windows cost more than the dead-lane shading they
-        # remove. TPT_MEGA_LIGHT=1 selects the machine (kept tested — it
+        # The classic depth-scan walk is the default. The persistent light
+        # machine
+        # (models/light_mega.py — same draw streams, per-vertex-equal output)
+        # was built to kill per-bounce lockstep waste, but on the previous
+        # accelerator it lost at this exact shape: the scan's compacted
+        # traversal already amortizes well and the machine's per-transition
+        # vertex scatter + drain windows cost more than the dead-lane shading
+        # they remove. TPT_MEGA_LIGHT=1 selects the machine (kept tested — it
         # may win on scenes with wildly varying light-path lengths).
         if _os.environ.get("TPT_MEGA_LIGHT"):
             from cudapathtracer_tpu.models import light_mega

@@ -1,10 +1,10 @@
 """BSDF library: lobes + vectorized dispatch.
 
-Re-design of reflectors.cuh for lockstep VPU lanes: instead of a per-thread
-switch on material type (reflectors.cuh:547-666), every lobe is evaluated as
-batched math and the result is selected per-lane with jnp.where — the
-compute-all-and-select pattern that keeps XLA fusion intact (lobes are cheap
-VPU arithmetic; only texture fetches gather).
+Re-design of reflectors.cuh for lockstep wavefront lanes: instead of a
+per-thread switch on material type (reflectors.cuh:547-666), every lobe is
+evaluated as batched math and the result is selected per-lane with jnp.where —
+the compute-all-and-select pattern that keeps XLA fusion intact (lobes are
+cheap elementwise arithmetic; only texture fetches gather).
 
 Conventions (reflectors.cuh comments at 305, 546-549): local shading frame
 with z = geometric-flipped normal; `wi` points AWAY from the surface

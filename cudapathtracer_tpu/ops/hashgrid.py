@@ -1,6 +1,6 @@
 """Photon hash grid: sort-based build + bounded neighborhood queries.
 
-TPU-native re-design of the reference's CUB-radix-sort hash grid
+Sort-based re-design of the reference's CUB-radix-sort hash grid
 (deviceCode.cu:3067-3198): photons are hashed by quantized cell
 (HashGridIndex primes, integratorUtilities.cuh:406-412), sorted with
 jax.lax-backed argsort (the XLA equivalent of DeviceRadixSort::SortPairs),
@@ -52,9 +52,9 @@ def _cell_weight(count, max_per_cell):
 # ONE-BRICK merge window (round 5; read at TRACE time like the toggles
 # below): the standard query fetches n_wide=2 consecutive 8-photon bricks
 # per cell because a cell's <=cap photon window starts at an arbitrary
-# offset within the sorted buffer. The merge stage is gather-ROW bound on
-# v5e (ROADMAP round-5 config6 attribution: row width and BSDF slot work
-# are free, total brick rows fetched are the cost), so instead this mode
+# offset within the sorted buffer. The merge stage was gather-ROW bound on
+# the previous accelerator (row width and BSDF slot work were free, total
+# brick rows fetched were the cost), so instead this mode
 # visits ONLY the photons of the single brick containing cell_start:
 # kept = min(count, cap, 8 - (start & 7)). With the per-sample SALT
 # randomizing each bucket's order (build_grid), those kept photons are a
@@ -69,9 +69,9 @@ def _cell_weight(count, max_per_cell):
 # silently disables itself there and on unsalted grids the subset is
 # deterministic (still correct in expectation over photon order only).
 def one_brick_active(max_per_cell: int) -> bool:
-    # DEFAULT ON since round 5 (config6 same-hour 5.27 -> 4.86 s/sample;
-    # all photon-family gates green under the mode): TPT_GRID_ONE_BRICK=0
-    # restores the full 2-brick window.
+    # On by default (faster on the shipped VCM workload on the previous
+    # accelerator; all photon-family gates green under the mode):
+    # TPT_GRID_ONE_BRICK=0 restores the full 2-brick window.
     return (os.environ.get("TPT_GRID_ONE_BRICK", "1") != "0"
             and _REWEIGHT and 1 <= max_per_cell <= 8)
 
@@ -101,8 +101,8 @@ class PhotonGrid(NamedTuple):
     cell_se: jax.Array     # [T+1, 2] i32 (start, end) — FUSED into one
     #                        row table so each cell lookup is a single
     #                        8-byte row gather instead of two element
-    #                        gathers (v5e gather cost is per row fetched;
-    #                        the merge query pays 8 of these per lane)
+    #                        gathers (the merge query pays 8 of these
+    #                        per lane)
     scene_min: jax.Array   # [3]
     cell_size: jax.Array   # scalar (= 2 * merge_radius)
     table_size: int        # static
@@ -178,12 +178,12 @@ def build_grid(rows, valid, scene_min, merge_radius, table_size: int,
         order = jnp.argsort(h)
     h_sorted = h[order]
     rows_sorted = rows[order]
-    # pad the row count to a multiple of 8 (+8 guard): fold_neighbors
-    # fetches photons in 8-photon "bricks" (the [P,8] buffer reshaped
-    # [P/8, 64]) so one wide gather replaces 8 narrow ones — v5e gather
-    # cost is per ROW and width-flat, so brick fetches cut the merge
-    # stage's gather traffic ~4x at cap 8. Pad rows land beyond every
-    # cell's [start, end) range and are masked out arithmetically.
+    # pad the row count to a multiple of 8 (+8 guard): fold_neighbors fetches
+    # photons in 8-photon "bricks" (the [P,8] buffer reshaped [P/8, 64]) so
+    # one wide gather replaces 8 narrow ones (gather cost was per ROW and
+    # width-flat on the previous accelerator, so brick fetches cut the merge
+    # stage's gather rows ~4x at cap 8). Pad rows land beyond every cell's
+    # [start, end) range and are masked out arithmetically.
     pad = (-p) % 8 + 8
     rows_sorted = jnp.concatenate(
         [rows_sorted, jnp.zeros((pad, rows.shape[1]), rows.dtype)], axis=0)
@@ -249,10 +249,9 @@ def fold_neighbors(grid: PhotonGrid, query_pos, merge_radius,
     Identical candidate set to the generator form, but the fold body
     compiles ONCE instead of 8*max_per_cell times (inside the VCM eye-pass
     scan that is the difference between minutes and seconds of compile
-    time), and each cell's slots are fetched with ONE batched gather —
-    faster than the generator's per-slot gathers (a [rows]-gather costs
-    ~18 us fixed + ~7.3 ns/row on v5e, so k separate gathers paid the
-    fixed cost k times).
+    time), and each cell's slots are fetched with ONE batched gather
+    instead of per-slot gathers (each gather has a fixed cost, which k
+    separate gathers pay k times).
 
     With count_dropped=True returns (carry, dropped) where dropped is the
     total number of candidate photons the static max_per_cell cap
@@ -273,9 +272,9 @@ def fold_neighbors(grid: PhotonGrid, query_pos, merge_radius,
     # brick fetch geometry: a cell's first max_per_cell photons start at
     # an arbitrary offset within the 8-photon bricks, so they span at most
     # (cap + 7)//8 + 1 consecutive bricks; each brick is ONE wide gather
-    # (64 floats) instead of 8 narrow ones — 4x less gather traffic at
-    # cap 8 (v5e gather cost is ~18 us fixed + ~7.3 ns per ROW,
-    # width-flat), which dominated the VCM merge stage.
+    # (64 floats) instead of 8 narrow ones — 4x fewer gathered rows at
+    # cap 8, which dominated the VCM merge stage on the previous
+    # accelerator.
     rw = grid.rows.shape[1]
     bricks = grid.rows.reshape(-1, 8 * rw)        # [P8/8, 64]
     one_brick = one_brick_active(max_per_cell)
@@ -283,10 +282,10 @@ def fold_neighbors(grid: PhotonGrid, query_pos, merge_radius,
     n_slots = 8 * n_wide
     max_brick = bricks.shape[0] - 1
 
-    # ---- batched cross-cell gathers. v5e gathers don't pipeline: each
-    # pays ~18 us FIXED + ~7.3 ns/row, so the per-cell formulation's
-    # 8 x (cell_start + cell_end + n_wide bricks) = 32 sequential gathers
-    # cost ~0.5 ms of pure fixed latency per fold call. Fusing them
+    # ---- batched cross-cell gathers. Each gather has a fixed cost (the
+    # previous accelerator did not pipeline them), so the per-cell
+    # formulation's 8 x (cell_start + cell_end + n_wide bricks) = 32
+    # sequential gathers paid it 32 times per fold call. Fusing them
     # across the cell axis ([8,N] index tensors) keeps the row traffic
     # identical but pays the fixed cost 2 + n_wide times instead.
     # Peak HBM for the pre-gathered bricks is 8*N*n_wide*256 B; huge
@@ -354,8 +353,8 @@ def fold_neighbors(grid: PhotonGrid, query_pos, merge_radius,
             # 8 static-slice selects, so the cell's first <=8 photons
             # land in slots 0..7 and the fold body runs 8 slot
             # iterations instead of 16 — the fold body (3 BSDF evals on
-            # the full sub-wavefront per slot) is the merge stage's VPU
-            # cost, and half its iterations were guaranteed-masked
+            # the full sub-wavefront per slot) is the merge stage's
+            # elementwise cost, and half its iterations were guaranteed-masked
             # padding. Same candidates in the same ascending order;
             # masked adds are exact 0.0 — bit-identical either way.
             a = (start & 7)[:, None]                 # [N,1]
@@ -417,12 +416,11 @@ def neighbor_slots(grid: PhotonGrid, query_pos, merge_radius,
     factor of each slot's cell (_cell_weight). Requires
     max_per_cell <= 8.
 
-    Rationale (measured round 4): at the compacted merge's sub-wavefront
-    width (~3k lanes) the scan/fori fold runs 8x16 slot iterations whose
-    per-op fixed overhead dominates — the VPU is ~4 rows wide at that
-    width. Callers should instead flatten [M,N] -> [M*N] and run the
-    merge BSDF/MIS math ONCE at proper vector width, then reduce over
-    the slot axis. `ok` already includes the exact distance^2 <= r^2
+    Rationale: at the compacted merge's sub-wavefront width (~3k lanes)
+    the scan/fori fold runs 8x16 slot iterations whose per-op fixed overhead
+    dominates. Callers should instead flatten [M,N] -> [M*N] and run the merge
+    BSDF/MIS math ONCE at proper vector width, then reduce over the slot axis.
+    `ok` already includes the exact distance^2 <= r^2
     test; `dropped` counts cap-truncated candidates exactly like
     fold_neighbors(count_dropped=True). Candidate set and per-slot
     ascending order match fold_neighbors; only the caller's summation
@@ -523,7 +521,7 @@ def neighbor_slots_compact(grid: PhotonGrid, query_pos, merge_radius,
     and the caller's merge math runs at that full slot width, yet typical
     occupancy is ~0-4 in-range photons — most of the wide BSDF work is
     masked padding. Compacting the stream to cap_q slots cuts the merge's
-    VPU work 8*max_per_cell/cap_q x and gathers thin [8]-float rows
+    elementwise work 8*max_per_cell/cap_q x and gathers thin [8]-float rows
     instead of 64-float bricks. The candidate SET equals neighbor_slots'
     whenever a query's total candidate count <= cap_q; beyond that the
     tail is truncated and counted in `dropped` (alongside the per-cell

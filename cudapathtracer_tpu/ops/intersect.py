@@ -1,8 +1,8 @@
 """Ray-triangle and ray-AABB intersection, batched over ray wavefronts.
 
-TPU-native counterparts of the reference's per-thread tests
+Wavefront counterparts of the reference's per-thread tests
 (integratorUtilities.cuh:8-82): every function takes [N,...] ray batches and
-is pure VPU math (no gathers), so XLA fuses it into the traversal loop.
+is pure elementwise math (no gathers), so XLA fuses it into the traversal loop.
 Also provides the O(T) brute-force intersector (the reference's own oracle,
 integratorUtilities.cuh:290-335) used by tests to validate BVH traversal.
 """

@@ -2,13 +2,12 @@
 
 Identical math to ops/bsdf.py + models/common.py + ops/traverse.shade_data
 + scene/camera.generate_rays, reorganized so every multi-component array
-rides the 128-wide TPU lane dimension as its MINOR axis: vectors are [3,N],
-uv is [2,N], the medium stack is [S,N], and the one shading gather is
-consumed transposed as [64,N] — exactly the layout rule that took the
-traversal step 4x faster when ops/traverse8.py was transposed (measured
-v5e cost model, docs/ROADMAP.md: a [N,3] elementwise op wastes ~125/128 of
-every vector register on lane padding; [3,N] puts components on sublanes
-and lanes on the 128-wide axis).
+keeps the wavefront as its MINOR axis: vectors are [3,N], uv is [2,N], the
+medium stack is [S,N], and the one shading gather is consumed transposed
+as [64,N] — the layout rule of ops/traverse8.py. It was chosen for the
+previous accelerator, whose vector registers padded a [N,3] elementwise
+op's minor axis to 128 lanes; on the GPU the two layouts have not been
+compared yet (ROADMAP Queue 3 item 2).
 
 Only the reorganization is new: each function cites its row-major original,
 and tests/test_lanemajor.py asserts numerical equivalence lane-by-lane.

@@ -1,15 +1,15 @@
 """Stackless wavefront BVH traversal — single-gather packed-row engine.
 
-The TPU-first replacement for the reference's per-thread stack walk
+The wavefront replacement for the reference's per-thread stack walk
 (BVHSceneIntersect / BVHShadowRay, integratorUtilities.cuh:84-288). All rays
 in the wavefront advance one BVH node per traversal step inside one
 `lax.while_loop`; per-lane state is a single int32 node cursor driven by
 precomputed per-octant hit/miss links (scene/bvh.py), so there is no stack
 and no divergence beyond masking.
 
-Performance model (measured on v5e): XLA:TPU gather cost is per ROW and
-almost independent of row width up to 128 floats (~2.5-6 ns/lane/row), so
-the entire per-step working set — node AABB, all 16 octant links, leaf
+Performance model (of the previous accelerator, where gather cost was per
+ROW and almost independent of row width up to 128 floats): the entire
+per-step working set — node AABB, all 16 octant links, leaf
 triangle count, and the (≤K) inline leaf triangles with their ids — lives in
 ONE packed row (Scene.node_packed) and each step issues exactly ONE gather.
 Several steps are unrolled per while_loop iteration to amortize the loop's
@@ -34,8 +34,9 @@ from cudapathtracer_tpu.utils.math import dot, normalize
 LEAF_MAT_FLAG = 1 << 30
 
 # Node-steps executed per while_loop iteration. Amortizes the loop's fixed
-# per-iteration cost on TPU; CPU XLA's compile time explodes with the
-# unrolled body, so tests dial it down via the environment.
+# per-iteration cost (tuned on the previous accelerator); CPU XLA's compile
+# time explodes with the unrolled body, so tests dial it down via the
+# environment.
 import os as _os
 
 STEPS_PER_ITER = int(_os.environ.get("TPT_STEPS_PER_ITER", "4"))
@@ -123,8 +124,9 @@ def _i32(col):
 
 def _oct_select(cols8, oct8):
     """Select column oct8[n] from [N,8] without a gather: one-hot reduce
-    (keeps everything as wide [N,8] VPU ops — single-column extraction from a
-    gathered array is pathologically slow on XLA:TPU, measured ~10x)."""
+    (keeps everything as wide [N,8] elementwise ops — single-column
+    extraction from a gathered array was pathologically slow on the
+    previous accelerator)."""
     onehot = (jnp.arange(8, dtype=jnp.int32)[None, :] == oct8[:, None])
     return jnp.sum(jnp.where(onehot, cols8, 0), axis=1)
 
@@ -161,8 +163,8 @@ def closest_hit(scene, o, d, max_t=None, skip_tri=None, active=None) -> Hit:
         curc = jnp.maximum(cur, 0)
 
         # ONE gather, consumed via a handful of WIDE slices + reshapes —
-        # XLA:TPU re-materializes the gather per distinct narrow slice
-        # (measured ~3x blowup with per-column slicing), so keep slices wide.
+        # XLA re-materialized the gather per distinct narrow slice on the
+        # previous accelerator, so keep slices wide.
         row = scene.node_packed[curc]                   # [N, W]
         bounds = row[:, 0:6].reshape(-1, 2, 3)
         tmin, tmax, hit = aabb_intersect(o, inv_d, bounds[:, 0], bounds[:, 1])
@@ -315,9 +317,10 @@ def trace_fused(scene, o, d, t_lim, is_shadow, skip_tri=None, active=None):
 def shade_data(scene, o, d, hit: Hit):
     """ONE packed-row gather -> (info dict, per-lane MaterialTable rows).
 
-    Fused replacement for interpolate_hit + MaterialTable.gather: on v5e a
-    random-row gather costs a ~320 us latency floor regardless of width, so
-    the ~13 per-field gathers they issue dominate shading cost; the packed
+    Fused replacement for interpolate_hit + MaterialTable.gather: on the
+    previous accelerator a random-row gather cost about the same at any
+    width, so the ~13 per-field gathers they issue dominated shading cost;
+    the packed
     Scene.tri_shade_row collapses them into one (layout in scene/scene.py).
     """
     from cudapathtracer_tpu.scene.materials import MaterialTable

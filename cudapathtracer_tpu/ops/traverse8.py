@@ -11,15 +11,13 @@ in their parent's row (emission-time knapsack, scene/bvh8.py), so most
 leaf visits cost zero extra steps; a pure leaf row is just a row with no
 children. There is no leaf bit: every traversal entry is a plain row id.
 
-LAYOUT: everything per-lane rides the 128-wide TPU lane dimension — the
-wavefront axis N is the MINOR axis of every multi-row array (stack [D,N],
-gathered row transposed to [64,N], ray components as separate [N] rows).
-The row-major [N,8]/[N,4]/[N,28] formulation wastes ~15/16 of every vector
-register on lane padding: measured on v5e, the identical slab-test math
-runs 11.7x faster as [6,8,N] than as [N,6,8], and the fused step dropped
-~4x overall when this module was transposed. The [N,64] row gather itself
-is nearly free (~3 us at 104k lanes, measured) — the cost was always the
-VPU work around it.
+LAYOUT: the wavefront axis N is the MINOR axis of every multi-row array
+(stack [D,N], gathered row transposed to [64,N], ray components as
+separate [N] rows). On the previous accelerator the row-major
+[N,8]/[N,4]/[N,28] formulation wasted most of every vector register on
+lane padding, and the row gather itself was nearly free next to the
+elementwise work around it. The GPU's costs differ; the layout has not
+been re-measured there (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -36,35 +34,28 @@ from cudapathtracer_tpu.ops.traverse import (Hit, _compacted_while, _i32,
                                              LEAF_MAT_FLAG)
 
 # Stack depth: with descend-direct traversal (the nearest hit child is
-# entered immediately instead of being pushed) the measured worst-case
-# occupancy on 82k-tri torture rays is 19. Correctness does NOT depend on
+# entered immediately instead of being pushed) the worst-case occupancy
+# seen on 82k-tri torture rays is 19. Correctness does NOT depend on
 # the constant: an overflowing push marks the lane `lost` and, once its
 # stack drains, the lane RESTARTS from the root with its tightened t_best
 # (closest-hit) / accumulated scale (shadow), up to MAX_RESTARTS times —
 # after which remaining losses would be silent (never observed; each restart
 # prunes far harder than the last). The [D,N] stack rides every pop/push
-# shift, so depth is HBM traffic: same-hour 1080p sweep (2026-08, v5e)
-# D=28/18/14/12/10 -> 10.33/10.68/10.94/10.18/9.53 Mrays/s — restarts stay
-# negligible down to 14 (lane-steps/ray 14.5 flat) and blow up below
-# (15.5/17.0). One-hot top-pointer stacks measured no better than shifts
-# (tools/stack_bench.py at the production width).
-# Round-3 re-sweep after the HYBRID rows (same-window, spi=6/w=9720):
-# D=12/14/16/18/20 -> 11.23/11.81/12.75/12.43/11.33 — the optimum moved
-# UP to 16 (inline absorption removed the shallow leaf pushes, so the
-# surviving stack entries skew deeper). Restarts are unaffected (a
-# deeper stack only loses less); images are bit-identical across D.
+# shift, so depth is memory traffic, traded against restarts, which blow
+# up below ~14 entries. D=16 was the optimum of a 1080p sweep on the
+# previous accelerator (one-hot top-pointer stacks were no better than
+# shifts there); it is not yet re-swept on the GPU (ROADMAP Queue 1
+# item 5). Images are bit-identical across D.
 STACK_D = int(_os.environ.get("TPT_STACK_D", "16"))
 MAX_RESTARTS = 3
 
 # Stack ELEMENT dtype. A u16 variant exists (row ids fit 16 bits for
 # tables under 65535 rows; entries stored BIASED by +1 so zeros = empty)
 # on the theory that halving the [D,N] stack's bytes halves its
-# pop/push shift traffic (~9 us of the ~60 us node-step). MEASURED AND
-# REJECTED as the default (round 4, same-session 1080p A/B at D=16:
-# i32 379 us/iter vs u16 400) — i16/u16 lives in (16,128) sublane
-# packing on the VPU and the extra pack/convert work outweighs the
-# bytes. TPT_STACK_U16=1 opts in (kept: wider machines or deeper stacks
-# may tip the balance).
+# pop/push shift traffic. Rejected as the default on the previous
+# accelerator, where 16-bit lanes needed extra pack/convert work that
+# outweighed the bytes. TPT_STACK_U16=1 opts in (kept: the GPU, wider
+# machines or deeper stacks may tip the balance).
 _WANT_U16 = _os.environ.get("TPT_STACK_U16", "0") not in ("0", "")
 
 
@@ -490,10 +481,9 @@ def make_fused_step(scene):
 
         valid = entry >= 0
         rowid = jnp.maximum(entry, 0)
-        # THE gather [N,W] -> [W,N]. Measured-neutral alternatives (same
-        # 1080p headline within noise): a pre-transposed [W,R] table
-        # gathered along axis 1, and an optimization_barrier forcing one
-        # materialization — XLA already handles the gather+transpose well.
+        # THE gather [N,W] -> [W,N]. Alternatives that were neutral on the
+        # previous accelerator: a pre-transposed [W,R] table gathered along
+        # axis 1, and an optimization_barrier forcing one materialization.
         rowT = table[rowid].T
 
         # ---- child stage: closest lanes benefit from the near-first

@@ -1,14 +1,15 @@
 """Multi-chip rendering: image-tile x spp sharding over a device mesh.
 
 The reference is strictly single-GPU (SURVEY.md §2.9/§5.8 — no NCCL/MPI
-anywhere); this module is the TPU-native scaling layer it never had, built
+anywhere); this module is the multi-device scaling layer it never had, built
 the JAX way: a 2-D `jax.sharding.Mesh` with axes
 
   "tile" — pixel rows of the wavefront are sharded across chips (each chip
            owns a contiguous pixel block; the scene/BVH/material tables are
            replicated, like the reference replicates them in one GPU's HBM)
   "spp"  — independent progressive samples run on different chips and are
-           summed with `psum` over ICI (the "data parallelism" of rendering)
+           summed with a `psum` collective (the "data parallelism" of
+           rendering)
 
 Per-chip Threefry streams are derived by folding both mesh coordinates into
 the render key, so every chip draws an independent, reproducible stream
@@ -72,7 +73,7 @@ def make_sharded_sample_fn(sample_fn, mesh: Mesh, scene, camera, splat=False,
     splat=True (BDPT/VCM light tracing): the integrator is called with a
     full-image `splat_shape` and returns (li_local, splat_full, rays); the
     splat buffer is psum-reduced over BOTH mesh axes and each shard adds
-    its own contiguous tile slice — the TPU-native replacement for the
+    its own contiguous tile slice — the collective replacement for the
     reference's atomicAdd framebuffer splat (deviceCode.cu:1426-1428).
     Integrator RNG is pixel-id keyed, so per-chip keys are NOT folded for
     splat integrators: every shard generates exactly the light paths of
@@ -99,7 +100,7 @@ def make_sharded_sample_fn(sample_fn, mesh: Mesh, scene, camera, splat=False,
             shard_key = jax.random.fold_in(jax.random.fold_in(key, ti), si)
             li, rays = sample_fn(scene_r, camera_r, shard_key, my_sample, px,
                                  py, **static_kw)
-        # sum independent samples over ICI; tile axis stays sharded
+        # sum independent samples across devices; tile axis stays sharded
         li = jax.lax.psum(li, "spp")
         rays = jax.lax.psum(rays, ("tile", "spp"))
         return li, rays

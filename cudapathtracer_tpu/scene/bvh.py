@@ -1,4 +1,4 @@
-"""SAH BVH: host-side build + TPU-friendly stackless threaded layout.
+"""SAH BVH: host-side build + stackless threaded layout.
 
 Build semantics mirror the reference's recursive CPU builder
 (main.cu:17-233): longest-axis split, 12-bucket binned SAH with cost
@@ -6,7 +6,7 @@ Build semantics mirror the reference's recursive CPU builder
 valid bucket split, mean-centroid backup split, force-leaf fallback, and
 epsilon-padded per-triangle AABBs (main.cu:20-47).
 
-The *layout* is the TPU-first departure: instead of a per-thread traversal
+The *layout* is the wavefront departure: instead of a per-thread traversal
 stack (integratorUtilities.cuh:84-186 uses a 128-entry local stack), nodes
 carry precomputed hit/miss links ("threaded" BVH) for each of the 8 ray
 direction octants, so traversal is a single vectorized loop over the whole

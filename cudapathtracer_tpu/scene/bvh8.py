@@ -1,22 +1,22 @@
 """BVH8: 8-wide BVH collapsed from the binary SAH tree (CBVH layout).
 
 Why 8-wide: threaded binary traversal costs ONE row gather per visited node,
-and on TPU the gather is the dominant per-step cost (~4.4 ns/lane/row on
-v5e) while VPU math is nearly free. An 8-wide node tests all 8 child AABBs
-from a single gathered row, pruning subtrees without visiting them — ~3-4x
-fewer gathers per ray. The price is per-lane stack state, which is kept as
-wide [N, D] arrays manipulated with one-hot masks (pure VPU, no narrow
-slices).
+and on the accelerator this layout was first tuned for the gather was the
+dominant per-step cost while elementwise math was nearly free. An 8-wide node
+tests all 8 child AABBs from a single gathered row, pruning subtrees without
+visiting them — ~3-4x fewer gathers per ray. The price is per-lane stack
+state, which is kept as wide [N, D] arrays manipulated with one-hot masks
+(elementwise, no narrow slices).
 
-Why sibling-contiguous ("compressed BVH") rows: all children of a node
-occupy CONSECUTIVE table rows, so a node stores one `child_base` int
-instead of 8 child pointers — the traversal's near-far ordering then sorts
-a SINGLE packed int key per child slot (tmin bits | slot) and reconstructs
-each child's row as `child_base + slot` by arithmetic. That removes two
-thirds of the sort-network traffic, which profiling showed was the largest
-non-gather cost of a traversal step (~27%). Zero space overhead: every row
-is still some node's child, rows are simply emitted in sibling blocks
-(BFS order, root = row 0).
+Why sibling-contiguous ("compressed BVH") rows: all children of a node occupy
+CONSECUTIVE table rows, so a node stores one `child_base` int instead of 8
+child pointers — the traversal's near-far ordering then sorts a SINGLE packed
+int key per child slot (tmin bits | slot) and reconstructs each child's row as
+`child_base + slot` by arithmetic. That removes two thirds of the sort-network
+traffic, which profiling on the previous accelerator showed was the largest
+non-gather cost of a traversal step. Zero space overhead: every row is still
+some node's child, rows are simply emitted in sibling blocks (BFS order, root
+= row 0).
 
 HYBRID rows (round 3): every row carries BOTH a child stage and up to
 `leaf_tris` INLINE triangles. The traversal step always runs both stages
@@ -84,8 +84,8 @@ TRI_OFF = 50    # inline triangles start at this row column
 
 def row_width(leaf_tris: int) -> int:
     """Table row width for an inline capacity: 48 bounds + 2 meta +
-    10 floats/tri. Gather cost on v5e is per ROW and near width-flat
-    (~1.1x at 96 vs 64, ~1.6x at 128), so capacity 4 -> width 96."""
+    10 floats/tri. Gather cost on the previous accelerator was per ROW
+    and nearly width-flat up to 96, so capacity 4 -> width 96."""
     need = TRI_OFF + 10 * leaf_tris
     for w in (64, 96, 128):
         if need <= w:

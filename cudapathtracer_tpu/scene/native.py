@@ -1,16 +1,21 @@
 """ctypes loader for the native C++ runtime components (csrc/).
 
 Compiles csrc/*.cpp into a shared library on first use (g++, cached in
-build/). Every native entry point has a pure numpy fallback in its Python
-caller, so the framework works even without a toolchain; the native path is
-the production one for large scenes.
+build/ under a name keyed by a hash of the sources and flags, so a fresh
+checkout never loads a library built from other sources). Every native
+entry point has a pure numpy fallback in its Python caller, so the
+framework works without a toolchain; a failed build says so on stderr.
+The native path is the production one for large scenes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import sys
+import tempfile
 import threading
 
 import numpy as np
@@ -18,10 +23,45 @@ import numpy as np
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _CSRC = os.path.join(_REPO_ROOT, "csrc")
 _BUILD = os.path.join(_REPO_ROOT, "build")
+_CXX = ["g++", "-O3", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
 _lib_failed = False
+
+
+def library_path(csrc: str = _CSRC, build: str = _BUILD) -> str:
+    """Where the library built from the current sources lives."""
+    h = hashlib.sha256(" ".join(_CXX).encode())
+    for name in sorted(f for f in os.listdir(csrc) if f.endswith(".cpp")):
+        h.update(name.encode())
+        with open(os.path.join(csrc, name), "rb") as f:
+            h.update(f.read())
+    return os.path.join(build, f"libtpt_native-{h.hexdigest()[:16]}.so")
+
+
+def build_library(csrc: str = _CSRC, build: str = _BUILD) -> str:
+    """Compile csrc/*.cpp unless the library for these sources exists.
+
+    The compiler writes a private temporary file that is renamed into
+    place, so concurrent builders (test workers) never load a half-written
+    library. Raises subprocess.CalledProcessError on a compiler error."""
+    out = library_path(csrc, build)
+    if os.path.exists(out):
+        return out
+    os.makedirs(build, exist_ok=True)
+    srcs = sorted(os.path.join(csrc, f) for f in os.listdir(csrc)
+                  if f.endswith(".cpp"))
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build)
+    os.close(fd)
+    try:
+        subprocess.run([*_CXX, "-o", tmp, *srcs], check=True,
+                       capture_output=True, text=True, timeout=300)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
 
 
 def _compile_and_load():
@@ -29,51 +69,46 @@ def _compile_and_load():
     with _lock:
         if _lib is not None or _lib_failed:
             return _lib
-        srcs = sorted(
-            os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
-            if f.endswith(".cpp"))
-        out = os.path.join(_BUILD, "libtpt_native.so")
         try:
-            if (not os.path.exists(out)
-                    or any(os.path.getmtime(out) < os.path.getmtime(s)
-                           for s in srcs)):
-                os.makedirs(_BUILD, exist_ok=True)
-                subprocess.run(
-                    ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                     "-o", out, *srcs],
-                    check=True, capture_output=True, timeout=120)
-            lib = ctypes.CDLL(out)
-            lib.tpt_build_bvh.restype = ctypes.c_int
-            lib.tpt_build_bvh.argtypes = [
-                ctypes.POINTER(ctypes.c_float),  # centroids
-                ctypes.POINTER(ctypes.c_float),  # amins
-                ctypes.POINTER(ctypes.c_float),  # amaxs
-                ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.POINTER(ctypes.c_int32),  # left
-                ctypes.POINTER(ctypes.c_int32),  # right
-                ctypes.POINTER(ctypes.c_int32),  # axis
-                ctypes.POINTER(ctypes.c_int32),  # leaf [M,2]
-                ctypes.POINTER(ctypes.c_float),  # bounds [M,6]
-                ctypes.POINTER(ctypes.c_int32),  # perm
-            ]
-            lib.tpt_bvh8_collapse.restype = ctypes.c_int
-            lib.tpt_bvh8_collapse.argtypes = [
-                ctypes.POINTER(ctypes.c_int32),   # left
-                ctypes.POINTER(ctypes.c_int32),   # right
-                ctypes.POINTER(ctypes.c_int32),   # leaf [M,2]
-                ctypes.POINTER(ctypes.c_float),   # bounds [M,6]
-                ctypes.c_int,                     # num_nodes
-                ctypes.POINTER(ctypes.c_float),   # tri_pack [T,9]
-                ctypes.POINTER(ctypes.c_uint8),   # tri_leaf_mat [T]
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.POINTER(ctypes.c_float),   # table out
-                ctypes.POINTER(ctypes.c_int32),   # counts out [2]
-                ctypes.c_int,                     # policy (0 greedy, 1 sah)
-            ]
-            _lib = lib
-        except Exception:
+            lib = ctypes.CDLL(build_library())
+        except subprocess.CalledProcessError as e:
+            print("WARNING: native BVH builder failed to compile; using the "
+                  f"numpy builder:\n{e.stderr}", file=sys.stderr)
             _lib_failed = True
-            _lib = None
+            return None
+        except (OSError, subprocess.TimeoutExpired) as e:
+            print("WARNING: native BVH builder unavailable; using the numpy "
+                  f"builder: {e}", file=sys.stderr)
+            _lib_failed = True
+            return None
+        lib.tpt_build_bvh.restype = ctypes.c_int
+        lib.tpt_build_bvh.argtypes = [
+            ctypes.POINTER(ctypes.c_float),  # centroids
+            ctypes.POINTER(ctypes.c_float),  # amins
+            ctypes.POINTER(ctypes.c_float),  # amaxs
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int32),  # left
+            ctypes.POINTER(ctypes.c_int32),  # right
+            ctypes.POINTER(ctypes.c_int32),  # axis
+            ctypes.POINTER(ctypes.c_int32),  # leaf [M,2]
+            ctypes.POINTER(ctypes.c_float),  # bounds [M,6]
+            ctypes.POINTER(ctypes.c_int32),  # perm
+        ]
+        lib.tpt_bvh8_collapse.restype = ctypes.c_int
+        lib.tpt_bvh8_collapse.argtypes = [
+            ctypes.POINTER(ctypes.c_int32),   # left
+            ctypes.POINTER(ctypes.c_int32),   # right
+            ctypes.POINTER(ctypes.c_int32),   # leaf [M,2]
+            ctypes.POINTER(ctypes.c_float),   # bounds [M,6]
+            ctypes.c_int,                     # num_nodes
+            ctypes.POINTER(ctypes.c_float),   # tri_pack [T,9]
+            ctypes.POINTER(ctypes.c_uint8),   # tri_leaf_mat [T]
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_float),   # table out
+            ctypes.POINTER(ctypes.c_int32),   # counts out [2]
+            ctypes.c_int,                     # policy (0 greedy, 1 sah)
+        ]
+        _lib = lib
         return _lib
 
 

@@ -1,8 +1,8 @@
 """Vector-math substrate for batched [N, 3] arrays.
 
-TPU-native equivalent of the reference's float4 register math (util.cuh:35-185):
+Wavefront equivalent of the reference's float4 register math (util.cuh:35-185):
 instead of per-thread float4 with a dead w component, every op here is over
-SoA batches of shape [..., 3] so the VPU sees wide, contiguous lanes.
+SoA batches of shape [..., 3].
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ def build_frame(n: jnp.ndarray):
     """Build an orthonormal tangent frame (t, b, n) from unit normals [...,3].
 
     Matches the reference's branch on |n.x| vs |n.z| (util.cuh:163-185) but
-    branch-free via jnp.where so all VPU lanes stay lockstep.
+    branch-free via jnp.where so all lanes stay lockstep.
     Returns (tangent, bitangent) with shapes like n.
     """
     nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]

@@ -4,7 +4,7 @@ Ports the *semantics* (not the code) of the reference's packed VCM vertex
 layout: octahedral unit-vector codec (util.cuh:342-391), RGB9E5 shared-exponent
 color codec (util.cuh:308-337), and the packed flag word
 (delta | backface | lightID | matID) of objects.cuh:945-1004. All ops are
-batched jnp so they vectorize on the VPU.
+batched jnp so they vectorize.
 """
 
 from __future__ import annotations

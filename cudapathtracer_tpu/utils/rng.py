@@ -1,10 +1,10 @@
 """Counter-based Threefry RNG streams.
 
-TPU-native replacement for the reference's per-pixel curand XORWOW state that
-is round-tripped through global memory every sample (deviceCode.cu:53-61, 215).
-Here a render is bit-reproducible by construction: every random draw is keyed
-by (seed, stream, sample, bounce, draw_id) and the array *lane* provides the
-per-pixel decorrelation (Threefry is counter-based, so one key -> one
+Counter-based replacement for the reference's per-pixel curand XORWOW state
+that is round-tripped through global memory every sample (deviceCode.cu:53-61,
+215). Here a render is bit-reproducible by construction: every random draw is
+keyed by (seed, stream, sample, bounce, draw_id) and the array *lane* provides
+the per-pixel decorrelation (Threefry is counter-based, so one key -> one
 deterministic stream indexed by output position).
 """
 
@@ -65,8 +65,8 @@ def lane_keys(key: jax.Array, draw_id: int, ids: jax.Array) -> jax.Array:
 
 
 # Raw vectorized Threefry-2x32 (Salmon et al., the same primitive JAX's PRNG
-# uses). vmapping jax.random.fold_in + uniform per lane measured ~2.7 ms per
-# draw at 104k lanes on v5e — ~300x off the VPU roofline; this elementwise
+# uses). vmapping jax.random.fold_in + uniform per lane was far off the
+# elementwise roofline on the previous accelerator; this elementwise
 # formulation of the identical cipher runs the whole draw as ~50 wide
 # uint32 ops.
 
@@ -125,8 +125,8 @@ def draw_key_table(key: jax.Array, bounces, draw_ids) -> jax.Array:
     draw_id) combination: returns u32 [len(bounces), len(draw_ids), 2].
 
     The persistent light machine (models/light_mega.py) keys each lane's
-    draws by the lane's OWN depth; folding per lane is ~300x off the VPU
-    roofline (see _threefry2x32 note), so the scalar fold chain
+    draws by the lane's OWN depth; folding per lane is far off the
+    elementwise roofline (see _threefry2x32 note), so the scalar fold chain
     bounce_key -> _draw_key runs HERE once per (bounce, draw) and lanes
     select their pair with a tiny-table gather."""
     rows = []

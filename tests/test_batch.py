@@ -1,7 +1,7 @@
 """Sample batching (models/batch.py): k samples in one dispatch must be
 bit-identical to k single dispatches summed — the positional-Threefry RNG
 guarantee that makes the batched fori_loop a pure scheduling choice (the
-TPU analogue of batching the reference's CUDA-Graph replays,
+analogue of batching the reference's CUDA-Graph replays,
 main.cu:538-599)."""
 
 import jax.numpy as jnp
@@ -79,10 +79,10 @@ def test_auto_samples_per_dispatch():
 
     small = RenderConfig(width=256, height=256)
     large = RenderConfig(width=1920, height=1080)
-    assert resolve_samples_per_dispatch(small, backend="tpu") == 8
+    assert resolve_samples_per_dispatch(small, backend="gpu") == 8
     assert resolve_samples_per_dispatch(
-        RenderConfig(width=512, height=512), backend="tpu") == 8
-    assert resolve_samples_per_dispatch(large, backend="tpu") == 1
+        RenderConfig(width=512, height=512), backend="gpu") == 8
+    assert resolve_samples_per_dispatch(large, backend="gpu") == 1
     assert resolve_samples_per_dispatch(small, backend="cpu") == 1
     assert resolve_samples_per_dispatch(
         RenderConfig(width=256, height=256, samples_per_dispatch=3),

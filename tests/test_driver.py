@@ -76,8 +76,8 @@ def test_checkpoint_mismatch_rejected(tmp_path):
 
 
 def test_checkpoint_orbax_roundtrip(tmp_path):
-    """Non-.npz checkpoint paths select the Orbax directory format
-    (docs/ROADMAP.md item 9); resume must be bit-exact like npz."""
+    """Non-.npz checkpoint paths select the Orbax directory format;
+    resume must be bit-exact like npz."""
     ck = os.path.join(str(tmp_path), "ck_orbax")
     r1 = Renderer(make_cfg(tmp_path))
     r1.render(num_samples=2, progressive=False, verbose=False)

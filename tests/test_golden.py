@@ -3,57 +3,28 @@ renders compared by RMSE against stored outputs — the framework's version of
 the reference's saveImageCSV_MONO numeric-diff workflow (imageUtil.cu:123).
 
 One golden per integrator family (unidirectional, mega-wavefront, BDPT,
-VCM, SPPM). Regenerate deliberately with tools/gen_goldens.py only when an
-estimator change is intended."""
+VCM, SPPM), defined in cudapathtracer_tpu/goldens.py. Regenerate
+deliberately with tools/gen_goldens.py only when an estimator change is
+intended."""
 
-import os
-
-import jax.numpy as jnp
-import numpy as np
 import pytest
 
-from cudapathtracer_tpu.models import (bdpt, unidirectional,
-                                       unidirectional_mega, vcm)
-from cudapathtracer_tpu.scene import builtin
-from cudapathtracer_tpu.scene.camera import Camera
-from cudapathtracer_tpu.scene.materials import builtin_materials
-from cudapathtracer_tpu.scene.scene import build_scene
-from cudapathtracer_tpu.utils import rng
-from cudapathtracer_tpu.utils.image import rmse
-
-GOLD = os.path.join(os.path.dirname(__file__), "golden")
-SIZE, SPP = 16, 8
+from cudapathtracer_tpu import goldens
 
 
 @pytest.fixture(scope="module")
 def setup():
-    scene, _ = build_scene(builtin.cornell_with_blocks(), builtin_materials())
-    cam = Camera.pinhole((0.0, 0.0, 1.0), SIZE, SIZE, 0.0, 0.0, 0.0, 60.0)
-    px, py = jnp.meshgrid(jnp.arange(SIZE), jnp.arange(SIZE))
-    return scene, cam, px.ravel(), py.ravel()
+    return goldens.setup()
 
 
-def _check(setup, fn, golden_name):
-    scene, cam, px, py = setup
-    key = rng.base_key()
-    acc = np.zeros((SIZE * SIZE, 3), np.float32)
-    for s in range(SPP):
-        li, _ = fn(scene, cam, key, s, px, py)
-        acc += np.asarray(li)
-    img = acc / SPP
-    golden = np.load(os.path.join(GOLD, golden_name))
-    # Threefry keying is bit-stable, but XLA:CPU reassociation differs
-    # slightly across processes/flag sets (measured up to ~3e-4 rmse on a
-    # ~0.7-mean image). Any real estimator change moves pixels by >>1e-2
-    # at 8 spp, so 1e-3 separates noise from drift cleanly.
-    err = rmse(img, golden)
-    assert err < 1e-3, f"golden drift vs {golden_name}: rmse={err:.2e}"
+def _check(setup, name, width=128):
+    err = goldens.golden_rmse(setup, name, width)
+    assert err < goldens.RMSE_MAX, f"golden drift vs {name}: rmse={err:.2e}"
 
 
 @pytest.mark.smoke
 def test_golden_unidirectional(setup):
-    _check(setup, lambda sc, c, k, s, px, py: unidirectional.render_sample(
-        sc, c, k, s, px, py, max_depth=6), "cornell_uni_16x16_8spp.npy")
+    _check(setup, "uni")
 
 
 @pytest.mark.smoke
@@ -62,30 +33,19 @@ def test_golden_mega(setup):
     valid) noise realization than the classic — it has its OWN golden, and
     the image must be invariant to lane scheduling (width)."""
     for width in (128, 64):
-        _check(setup, lambda sc, c, k, s, px, py:
-               unidirectional_mega.render_sample(
-                   sc, c, k, s, px, py, max_depth=6, width=width),
-               "cornell_mega_16x16_8spp.npy")
+        _check(setup, "mega", width)
 
 
 @pytest.mark.smoke
 def test_golden_bdpt(setup):
-    cfg = bdpt.BDPTConfig(eye_depth=6, light_depth=4)
-    _check(setup, lambda sc, c, k, s, px, py: bdpt.render_sample(
-        sc, c, k, s, px, py, cfg=cfg), "cornell_bdpt_16x16_8spp.npy")
+    _check(setup, "bdpt")
 
 
 @pytest.mark.smoke
 def test_golden_vcm(setup):
-    cfg = vcm.VCMConfig(eye_depth=6, light_depth=4)
-    _check(setup, lambda sc, c, k, s, px, py: vcm.render_sample(
-        sc, c, k, s, px, py, cfg=cfg), "cornell_vcm_16x16_8spp.npy")
+    _check(setup, "vcm")
 
 
 @pytest.mark.smoke
 def test_golden_sppm(setup):
-    cfg = vcm.VCMConfig(eye_depth=6, light_depth=4, light_trace=False,
-                        nee=False, naive=False, connection=False,
-                        do_mis=False, do_sppm=True)
-    _check(setup, lambda sc, c, k, s, px, py: vcm.render_sample(
-        sc, c, k, s, px, py, cfg=cfg), "cornell_sppm_16x16_8spp.npy")
+    _check(setup, "sppm")

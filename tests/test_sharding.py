@@ -80,7 +80,7 @@ def test_graft_dryrun_multichip():
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 def test_spp_sharded_bdpt(setup):
     """Splat-based integrators shard correctly over the spp axis (each chip
-    renders the full image; radiance psum over ICI)."""
+    renders the full image; radiance psum across devices)."""
     from functools import partial
 
     from cudapathtracer_tpu.models import bdpt

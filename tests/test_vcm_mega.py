@@ -176,10 +176,10 @@ def test_sppm_mega_mode_runs(setup):
 
 
 def test_vcm_mega_reports_merge_dropped(setup):
-    """Driver-facing merge-cap counter on the PRODUCTION engine (round-3
-    VERDICT: the classic path counted, the default mega path silently
-    truncated). A tiny cap with a fat radius must fire on the Cornell
-    scene; counting must not change the image or ray tally."""
+    """Driver-facing merge-cap counter on the PRODUCTION engine (the classic
+    path counts; the default mega path must too). A tiny cap with a fat radius
+    must fire on the Cornell scene; counting must not change the image or ray
+    tally."""
     scene, cam, px, py = setup
     key = rng.base_key()
     cfg = vcm.VCMConfig(eye_depth=4, light_depth=4, max_per_cell=1,

@@ -14,56 +14,19 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ.setdefault("TPT_STEPS_PER_ITER", "1")
 
-import jax.numpy as jnp
 import numpy as np
 
-from cudapathtracer_tpu.models import (bdpt, unidirectional,
-                                       unidirectional_mega, vcm)
-from cudapathtracer_tpu.scene import builtin
-from cudapathtracer_tpu.scene.camera import Camera
-from cudapathtracer_tpu.scene.materials import builtin_materials
-from cudapathtracer_tpu.scene.scene import build_scene
-from cudapathtracer_tpu.utils import rng
-
-GOLD = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "tests", "golden")
-SIZE, SPP = 16, 8
+from cudapathtracer_tpu import goldens
 
 
 def main():
-    scene, _ = build_scene(builtin.cornell_with_blocks(), builtin_materials())
-    cam = Camera.pinhole((0.0, 0.0, 1.0), SIZE, SIZE, 0.0, 0.0, 0.0, 60.0)
-    px, py = jnp.meshgrid(jnp.arange(SIZE), jnp.arange(SIZE))
-    px, py = px.ravel(), py.ravel()
-    key = rng.base_key()
-
-    runs = {
-        "cornell_uni_16x16_8spp.npy": lambda s: unidirectional.render_sample(
-            scene, cam, key, s, px, py, max_depth=6),
-        "cornell_mega_16x16_8spp.npy": lambda s:
-            unidirectional_mega.render_sample(
-                scene, cam, key, s, px, py, max_depth=6, width=128),
-        "cornell_bdpt_16x16_8spp.npy": lambda s: bdpt.render_sample(
-            scene, cam, key, s, px, py,
-            cfg=bdpt.BDPTConfig(eye_depth=6, light_depth=4)),
-        "cornell_vcm_16x16_8spp.npy": lambda s: vcm.render_sample(
-            scene, cam, key, s, px, py,
-            cfg=vcm.VCMConfig(eye_depth=6, light_depth=4)),
-        "cornell_sppm_16x16_8spp.npy": lambda s: vcm.render_sample(
-            scene, cam, key, s, px, py,
-            cfg=vcm.VCMConfig(eye_depth=6, light_depth=4, light_trace=False,
-                              nee=False, naive=False, connection=False,
-                              do_mis=False, do_sppm=True)),
-    }
-    for name, fn in runs.items():
-        acc = np.zeros((SIZE * SIZE, 3), np.float32)
-        for s in range(SPP):
-            li, _ = fn(s)
-            acc += np.asarray(li)
-        img = acc / SPP
+    frame = goldens.setup()
+    for name in goldens.FAMILIES:
+        fname = goldens.family(name)[0]
+        img = goldens.render(frame, name)
         assert np.isfinite(img).all(), name
-        np.save(os.path.join(GOLD, name), img)
-        print(f"{name}: mean={img.mean():.4f} max={img.max():.3f}")
+        np.save(os.path.join(goldens.GOLDEN_DIR, fname), img)
+        print(f"{fname}: mean={img.mean():.4f} max={img.max():.3f}")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""VCM full-technique partition-unity checker (VERDICT r4 weak #1).
+"""VCM full-technique partition-unity checker.
 
 For a FIXED diffuse path x0(camera) -> x1 -> x2 -> x3(light), compute the
 MIS weight that each technique in the production VCM code would assign to
